@@ -1,14 +1,14 @@
-"""kaldi_decoder_tpu: a TPU-native WFST decoding framework.
+"""kaldi_decoder_tpu: a batched WFST decoding framework for accelerators.
 
 A from-scratch reimplementation of the capabilities of
-`k2-fsa/kaldi-decoder` designed for TPU (JAX/XLA/Pallas): decoding graphs
+`k2-fsa/kaldi-decoder` in JAX/XLA: decoding graphs
 are flattened to device-resident CSR arc tables, and token-passing beam
 search runs as frame-synchronous fixed-shape array programs under ``jit``,
 batched over utterances and shardable over device meshes.
 
 Public API mirrors the reference package's exports
 (`kaldi-decoder/python/kaldi_decoder/__init__.py:1-9`) plus the
-TPU-native batched decoders.
+batched device decoders.
 """
 
 __version__ = "0.1.0"

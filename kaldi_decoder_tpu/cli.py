@@ -168,6 +168,9 @@ def main(argv=None) -> int:
     i.set_defaults(fn=cmd_info)
 
     args = p.parse_args(argv)
+    from kaldi_decoder_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     return args.fn(args)
 
 

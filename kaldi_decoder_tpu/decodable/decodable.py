@@ -6,7 +6,7 @@ the log-likelihood of input label *i* (1-based) at frame *t*", supports
 streaming via a growing ``num_frames_ready`` (`decodable-itf.h:87-96`), and
 signals the last frame.
 
-The TPU-native difference: scores are always consumed as **dense arrays**
+The device difference: scores are always consumed as **dense arrays**
 ``(T, V)`` (or batched ``(B, T, V)``) — the per-(token, arc) virtual call in
 the reference's hot loop (`faster-decoder.cc:209`) becomes a gather fused
 into the arc-expansion kernel.  ``DecodableInterface`` subclasses written in
@@ -49,7 +49,7 @@ class DecodableInterface:
     def num_indices(self) -> int:
         raise NotImplementedError
 
-    # -- TPU fast path ------------------------------------------------------
+    # -- dense fast path ----------------------------------------------------
 
     def score_matrix(self) -> Optional[np.ndarray]:
         """If the scores exist as a dense ``(num_frames_ready - offset, V)``

@@ -39,7 +39,6 @@ from kaldi_decoder_tpu.decoders.frontier import (
     expand_eps,
     start_state,
 )
-from kaldi_decoder_tpu.decoders.viterbi import SCAN_UNROLL
 from kaldi_decoder_tpu.fst.csr import CsrGraph
 from kaldi_decoder_tpu.fst.pack import PackedGraph
 from kaldi_decoder_tpu.ops.cutoff import get_cutoff
@@ -88,30 +87,6 @@ def lattice_config_for_graph(
         frontier=frontier, em_records=em_r, eps_records=eps_r,
         lattice_beam=float(lattice_beam),
     )
-
-
-def compact_records(
-    src_state: jnp.ndarray, arc_id: jnp.ndarray, valid: jnp.ndarray, r: int
-):
-    """Pack valid records to the front of an (r, 2) buffer; -1 padded.
-
-    Stable (records keep candidate order).  Returns (records, overflowed).
-    Implemented as one ``top_k`` over a strictly-decreasing key for valid
-    lanes — measurably cheaper on TPU than the equivalent argsort.
-    """
-    n = valid.shape[0]
-    key = jnp.where(valid, n - jnp.arange(n, dtype=jnp.int32), 0)
-    vals, take = jax.lax.top_k(key, r)
-    ok = vals > 0
-    safe = jnp.where(ok, take, 0)
-    rec = jnp.stack(
-        [
-            jnp.where(ok, src_state[safe], -1),
-            jnp.where(ok, arc_id[safe], -1),
-        ],
-        axis=-1,
-    ).astype(jnp.int32)
-    return rec, jnp.sum(valid) > r
 
 
 class LatticeStepOut(NamedTuple):
@@ -463,9 +438,7 @@ def _build_lattice_chunk_fn_cached(
             return lattice_frame_step_batched(st, scores_t, active, pg, cfg, S)
 
         ts = jnp.arange(scores_tm.shape[0], dtype=jnp.int32)
-        stf, outs = jax.lax.scan(
-            body, st0, (scores_tm, ts), unroll=SCAN_UNROLL
-        )
+        stf, outs = jax.lax.scan(body, st0, (scores_tm, ts))
         return stf, outs
 
     if mesh is None:

@@ -1,11 +1,10 @@
-"""Device-side windowed backward extra-cost sweep (round 4).
+"""Device-side windowed backward extra-cost sweep.
 
 The reference prunes its token/link structure with a backward sweep every
 ``prune_interval`` frames (``PruneActiveTokens``,
 `kaldi-decoder/csrc/lattice-simple-decoder.cc:198-223`, link extra cost
-recurrence at `:254-296`).  Rounds 1-3 ran that sweep on the host over
-the FULL per-frame record buffers, which meant downloading ~0.5 GB per
-bench run and ~20 s of host numpy — the e2e wall (VERDICT r3 missing #3).
+recurrence at `:254-296`).  Running that sweep on the host would mean
+downloading the FULL per-frame record buffers (~0.5 GB per bench batch).
 
 This module runs the same *windowed* sweep on device, as a reverse
 ``lax.scan`` over the chunk's stacked frame outputs, and compacts the
@@ -76,9 +75,9 @@ def sweep_config(cfg, chunk_frames: int) -> SweepConfig:
     allowance."""
     fc = cfg.frontier
     T = chunk_frames
-    # Measured at bench scale (scripts/sweep_stats.py): the zero-boundary
-    # windowed prune keeps ~30-140 links/frame on noisy stretches, so the
-    # caps allow ~16x the final-lattice density before flagging.
+    # At bench scale the zero-boundary windowed prune keeps ~30-140
+    # links/frame on noisy stretches, so the caps allow ~16x the
+    # final-lattice density before flagging.
     return SweepConfig(
         frontier_size=fc.frontier_size,
         em_records=cfg.em_records,
@@ -108,8 +107,8 @@ class SweepOut(NamedTuple):
 def _join_min(keys: jnp.ndarray, states: jnp.ndarray, vals: jnp.ndarray):
     """min over {vals[k] : states[k] == key} per key (+inf when absent).
 
-    Dense compare-reduce — (n_keys, K) elementwise on the VPU; measured
-    cheaper than gather/scatter joins at bench shapes."""
+    Dense compare-reduce over an (n_keys, K) elementwise grid: no
+    gathers or scatters, and fixed shapes."""
     eq = keys[:, None] == states[None, :]
     return jnp.min(jnp.where(eq, vals[None, :], INF), axis=1)
 

@@ -2,7 +2,7 @@
 
 This replaces the reference's pointer-chasing ``fst::Fst<StdArc>`` +
 ``ArcIterator`` traversal (`kaldi-decoder/csrc/faster-decoder.cc:196-237`)
-with dense arrays the TPU can gather from.  Design decisions (SURVEY §7.1):
+with dense arrays the device can gather from.  Design decisions (SURVEY §7.1):
 
 * Arcs are **partitioned into emitting (ilabel > 0) and epsilon
   (ilabel == 0) sub-CSRs**, mirroring the emitting/non-emitting processing

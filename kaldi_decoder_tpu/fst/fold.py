@@ -2,8 +2,8 @@
 
 The reference interleaves every frame's emitting expansion with an
 epsilon-closure worklist (`kaldi-decoder/csrc/faster-decoder.cc:59-119`).
-On TPU that closure costs bounded-iteration expansions + dedups per frame
-— typically half the frame time.  For graphs with an *acyclic* epsilon
+On the device that closure costs bounded-iteration expansions + dedups
+per frame.  For graphs with an *acyclic* epsilon
 subgraph (H/HL/HLG all qualify) the closure can be precomposed at graph
 compile time instead:
 

@@ -1,6 +1,6 @@
 """Host FST algorithms used around the device decoders.
 
-TPU-native equivalents of the OpenFst operations the reference calls:
+Equivalents of the OpenFst operations the reference calls:
 
 * ``connect`` — trim inaccessible/non-coaccessible states (used inside
   OpenFst's ShortestPath; needed before lattice post-processing).
@@ -13,7 +13,7 @@ TPU-native equivalents of the OpenFst operations the reference calls:
   lattice-weight total order.
 
 These run on the host: decoder outputs are small (pruned lattices / linear
-paths), so there is nothing to gain from putting them on the TPU.
+paths), so there is nothing to gain from putting them on the device.
 """
 
 from __future__ import annotations

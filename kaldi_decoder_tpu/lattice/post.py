@@ -17,7 +17,7 @@ LM-rescoring path extraction"):
   an external word-level LM callback (the LM-rescoring hook).
 
 Lattices here are decoder outputs: acyclic, modest size; host numpy/heapq
-is the right tool (nothing to gain on TPU).
+is the right tool (nothing to gain on the device).
 """
 
 from __future__ import annotations

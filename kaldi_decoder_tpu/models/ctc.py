@@ -2,9 +2,9 @@
 
 The reference has **no** model layer — its acoustic model lives in
 icefall/torch behind ``DecodableInterface`` (SURVEY §1, L6).  This module
-exists so the framework is usable standalone end-to-end on TPU: features →
-log-softmax posteriors → decoder, all in one jitted program.  It is a
-deliberately small conv + MLP-mixer-style encoder (MXU-friendly matmuls,
+exists so the framework is usable standalone end-to-end on the device:
+features → log-softmax posteriors → decoder, all in one jitted program.
+It is a deliberately small conv + MLP-mixer-style encoder (dense matmuls,
 bf16-ready), not a competitive ASR model.
 """
 
@@ -58,8 +58,8 @@ def forward(
 ) -> jnp.ndarray:
     """(B, T, F) features -> (B, T // subsampling, V) log-softmax posteriors.
 
-    Compute is dominated by large matmuls (MXU); normalization and GELU
-    fuse into them under XLA.
+    Compute is dominated by large matmuls; normalization and GELU fuse
+    around them under XLA.
     """
     B, T, F = feats.shape
     Ts = T // cfg.subsampling

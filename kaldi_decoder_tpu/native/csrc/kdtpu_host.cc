@@ -1,6 +1,6 @@
 // kdtpu_host: native host runtime for kaldi_decoder_tpu.
 //
-// TPU-native replacement for the reference's native host layer — the
+// Native replacement for the reference's native host layer — the
 // OpenFst/kaldifst graph machinery it links against
 // (/root/reference/cmake/kaldifst.cmake:1-69) and the host-side lattice
 // algorithms it calls (fst::ShortestPath at

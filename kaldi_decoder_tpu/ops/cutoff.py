@@ -12,8 +12,8 @@ Reimplements the decision logic of ``FasterDecoder::GetCutoff``
   cost (`:315`) *loosens* the cutoff when the plain beam would leave fewer
   than ``min_active`` tokens, with the analogous adaptive beam.
 
-The C++ uses ``nth_element`` over a scratch vector; on TPU the frontier is
-already a fixed-K array so a single sort (or the incumbent sorted order)
+The C++ uses ``nth_element`` over a scratch vector; on the device the
+frontier is already a fixed-K array so a single sort (or the incumbent sorted order)
 provides every order statistic at once.
 """
 

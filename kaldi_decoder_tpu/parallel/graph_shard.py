@@ -4,7 +4,7 @@ For graphs too large for one chip's HBM (or to scale per-graph bandwidth),
 states are partitioned contiguously across P devices; each device owns the
 out-arcs of its states.  Per frame, every device expands its local
 frontier, then routes each candidate token to its destination state's
-owner with one ``all_to_all`` over the mesh axis (ICI), and dedups/prunes
+owner with one ``all_to_all`` over the mesh axis, and dedups/prunes
 locally — global per-state dedup holds because ownership is a partition.
 
 The reference has no distributed anything (SURVEY §2.5); this is the
@@ -19,21 +19,19 @@ ids (``device * K_local + slot``), so the host backtrace and results
 machinery (:class:`kaldi_decoder_tpu.decoders.viterbi.ViterbiResult`) is
 reused unchanged.
 
-**When is sharding actually required?**  A v5e chip's ~16 GB HBM holds
-the device graph at ~16 bytes/emitting arc (12 B packed flat row + ~4 B
-amortized block/row_ptr overhead at W=3) plus ~2 GB of decode buffers at
-bench shapes — so single-chip capacity is roughly **800M emitting arcs
-(~20x the bench HLG; a LibriSpeech 4-gram HLG is ~400M)**.  Below that,
-shard for per-graph bandwidth only if profiling says so: the measured
-single-chip overhead of the sharded program structure is in BASELINE.md.
-Round 4 adds **local pre-routing dedup** (see ``_route``): each source
-shard routes only per-(owner, state) minima (best-path decode) or
+**When is sharding actually required?**  The device graph takes ~16
+bytes/emitting arc (12 B packed flat row + ~4 B amortized block/row_ptr
+overhead at W=3) plus a few GB of decode buffers at bench shapes, so an
+80 GB card holds a few billion emitting arcs — far beyond a LibriSpeech
+4-gram HLG (~400M).  Below that, shard for per-graph bandwidth only if
+profiling says so.  **Local pre-routing dedup** (see ``_route``): each
+source shard routes only per-(owner, state) minima (best-path decode) or
 minima + within-lattice-beam extras (lattice decode, provably lossless
 since local slack lower-bounds global slack), which cuts routed volume
-and ICI bytes by the local duplication factor.
+and interconnect bytes by the local duplication factor.
 
 **Why epsilon precomposition (``fst/fold.py``) is NOT used here** (the
-unsharded decoders fold by default, worth ~15% single-chip throughput):
+unsharded decoders fold by default):
 a folded composite arc collapses an emitting arc plus an eps chain whose
 intermediate states generally live on *other* shards.  Sharding the
 folded graph would (a) route each composite directly to its final owner,
@@ -44,8 +42,7 @@ fan-out (backoff hubs have thousands of arcs) onto single shards,
 skewing the all_to_all.  Runtime closure instead routes eps candidates
 through their owners with the same global-cutoff semantics, preserving
 exact parity with the unsharded decoder (proven at HL scale in
-``tests/test_graph_shard.py``).  The measured single-chip overhead of
-the sharded program vs the unsharded one is reported in BASELINE.md.
+``tests/test_graph_shard.py``).
 """
 
 from __future__ import annotations
@@ -59,10 +56,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 
-try:
-    from jax import shard_map  # jax >= 0.8
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from kaldi_decoder_tpu.decoders.frontier import (
     NO_ARC,
@@ -226,7 +220,7 @@ def _route(
     One 3-key sort by (owner, local state, cost) groups candidates AND
     performs the **local pre-routing dedup** (VERDICT r3 #6): each
     (owner, state) run's leader is its local per-state minimum, so
-    non-leader duplicates never spend bucket capacity or ICI bandwidth.
+    non-leader duplicates never spend bucket capacity or interconnect bandwidth.
 
     * ``local_slack_beam=None`` (best-path decode): ONLY leaders are
       routed — duplicates can never win the destination's global dedup,

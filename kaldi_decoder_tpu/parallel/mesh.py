@@ -8,11 +8,11 @@ batch-independent, so partitioning the batch axis over a ``data`` mesh
 axis makes XLA run every chip on its shard with zero collectives in the
 hot loop (stats reductions stay per-utterance).
 
-Multi-host pods: call :func:`initialize_distributed` first (wraps
+Multi-host: call :func:`initialize_distributed` first (wraps
 ``jax.distributed.initialize``), then build the mesh over all devices —
-the same code path scales from 1 chip to a v5e pod slice.  Tests exercise
-this on a virtual 8-device CPU mesh (see tests/conftest.py), which is also
-how the driver's ``dryrun_multichip`` validates it.
+the same code path scales from one card to several hosts.  Tests exercise
+this on a virtual 8-device CPU mesh (see tests/conftest.py); on GPUs,
+``chip_smoke.py --chips 4`` checks it against a single-card decode.
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 
 The reference uses C++ stream-logging macros (`kaldi-decoder/csrc/log.h:74-91`)
 whose `kError` level throws from the destructor (`log.h:46-53`).  The
-TPU-native equivalent is plain Python logging plus structured, per-utterance
+equivalent here is plain Python logging plus structured, per-utterance
 decode stats: because decoding runs as one jitted program over a whole batch,
 stats are produced as arrays and summarized here instead of per-token log
 lines (e.g. the pruning logs at `simple-decoder.cc:278-279`).

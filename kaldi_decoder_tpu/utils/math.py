@@ -1,6 +1,6 @@
 """Small math helpers.
 
-TPU-native replacement of the reference's math utilities
+Replacement of the reference's math utilities
 (`kaldi-decoder/csrc/kaldi-math.h:36-44`): the only behavior the decoders
 rely on is the relative-tolerance float comparison used during final-frame
 lattice link pruning (`kaldi-decoder/csrc/lattice-simple-decoder.cc:512`).

@@ -7,7 +7,7 @@ set -euo pipefail
 cd "$(dirname "$0")/.."
 
 echo "== syntax gate =="
-python -m compileall -q kaldi_decoder_tpu tests scripts bench.py __graft_entry__.py
+python -m compileall -q kaldi_decoder_tpu tests scripts bench.py chip_smoke.py __graft_entry__.py
 
 echo "== style gate =="
 python scripts/check_style.py

@@ -21,7 +21,10 @@ import sys
 
 MAX_LEN = 92
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-TARGETS = ["kaldi_decoder_tpu", "tests", "scripts", "bench.py", "__graft_entry__.py"]
+TARGETS = [
+    "kaldi_decoder_tpu", "tests", "scripts", "bench.py", "chip_smoke.py",
+    "__graft_entry__.py",
+]
 
 
 def iter_files():

@@ -21,10 +21,9 @@ import time
 REPO = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
-import jax  # noqa: E402
+from kaldi_decoder_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
 
-jax.config.update("jax_compilation_cache_dir", str(REPO / ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+enable_compile_cache()
 
 import bench as B  # noqa: E402
 from kaldi_decoder_tpu.decodable import DecodableCtc  # noqa: E402

@@ -11,7 +11,7 @@ Prints one JSON line per budget:
   {"em_records": N, "recall": r, "extra": n, "overflow_frames": m,
    "best_path_match": true}
 
-Run on CPU or TPU; the oracle is host Python either way (~minutes at
+Run on CPU or GPU; the oracle is host Python either way (~minutes at
 T=1000).  KDTPU_RECALL_T trims the utterance for faster runs.
 """
 
@@ -26,10 +26,9 @@ import numpy as np
 REPO = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
-import jax  # noqa: E402
+from kaldi_decoder_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
 
-jax.config.update("jax_compilation_cache_dir", str(REPO / ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+enable_compile_cache()
 
 import bench as B  # noqa: E402
 from kaldi_decoder_tpu.decodable import DecodableCtc  # noqa: E402

@@ -3,7 +3,7 @@
 The decoders' correctness story rests on jit tracing being semantics-
 preserving; this pins it explicitly: one full lattice frame step produces
 bit-identical frontiers/records under ``jax.disable_jit`` and under the
-compiled path (the TPU analogue of running a sanitizer build —
+compiled path (the device analogue of running a sanitizer build —
 `scripts/check_style_cpplint.sh` is the reference's only gate; we can do
 better because the program is pure).
 """

@@ -455,13 +455,15 @@ class TestDeterminizeAlignments:
         assert alignment_of(det, aligns, [1, 1, 1, 1, 1, 1, 1, 2]) is None
 
 
-def test_decode_async_pipelined_matches_serial():
+@pytest.mark.parametrize("fetch_order", ["dispatch", "reversed"])
+def test_decode_async_pipelined_matches_serial(fetch_order):
     """Two decode_async batches in flight (the bench's pipelined shape)
-    produce identical lattices/best paths to serial decode() calls —
-    the dispatch-time download slices and init memoization must not
-    leak state across batches."""
+    produce identical lattices/best paths to serial decode() calls,
+    whichever batch is fetched first — the dispatch-time download slices
+    and init memoization must not leak state across batches."""
     import numpy as np
 
+    from _lattice_util import device_link_set
     from kaldi_decoder_tpu.decoders.lattice import BatchedLatticeDecoder
     from kaldi_decoder_tpu.fst import path_labels, random_fst
     from kaldi_decoder_tpu.fst.csr import compile_fst
@@ -479,7 +481,10 @@ def test_decode_async_pipelined_matches_serial():
 
     p1 = dec.decode_async(sc1, chunk_frames=8)
     p2 = dec.decode_async(sc2, chunk_frames=8)
-    r1, r2 = p1.result(), p2.result()
+    if fetch_order == "dispatch":
+        r1, r2 = p1.result(), p2.result()
+    else:
+        r2, r1 = p2.result(), p1.result()
 
     s1 = dec.decode(sc1, chunk_frames=8)
     s2 = dec.decode(sc2, chunk_frames=8)
@@ -490,4 +495,5 @@ def test_decode_async_pipelined_matches_serial():
                 assert gp is None
             else:
                 assert gp == wp
+                assert device_link_set(got, b) == device_link_set(want, b)
             assert got.best_path_labels(b) == want.best_path_labels(b)

@@ -237,3 +237,21 @@ def test_best_path_labels_matches_fst_path():
         want = path_labels(p) if p is not None else None
         got = res.best_path_labels(b)
         assert got == want, (b, got, want)
+
+
+def test_library_keyed_by_source_hash(tmp_path):
+    """A library built from other source is never loaded in its place: a
+    changed source gets a new library, an unchanged one reuses it."""
+    src = tmp_path / "kdtpu_host.cc"
+    with open(native._SRC) as f:
+        src.write_text(f.read())
+    lib_dir = str(tmp_path / "lib")
+    first = native._build(str(src), lib_dir)
+    assert first is not None and os.path.exists(first)
+    mtime = os.path.getmtime(first)
+    assert native._build(str(src), lib_dir) == first
+    assert os.path.getmtime(first) == mtime
+    src.write_text(src.read_text() + "\n// changed\n")
+    second = native._build(str(src), lib_dir)
+    assert second is not None and second != first
+    assert os.path.exists(second)
